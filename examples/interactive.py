@@ -20,10 +20,10 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ash_renderer_tpu import RendererSettings  # noqa: E402
-from ash_renderer_tpu.app import App, InputEvent  # noqa: E402
-from ash_renderer_tpu.benchmarks import ALL_CONFIGS  # noqa: E402
-from ash_renderer_tpu.present import TerminalViewer  # noqa: E402
+from ash_renderer import RendererSettings  # noqa: E402
+from ash_renderer.app import App, InputEvent  # noqa: E402
+from ash_renderer.benchmarks import ALL_CONFIGS  # noqa: E402
+from ash_renderer.present import TerminalViewer  # noqa: E402
 
 
 def read_keys_nonblocking(fd) -> list[str]:
@@ -66,7 +66,7 @@ def main():
     term = TerminalViewer(max_cols=args.cols)
     http = None
     if args.http is not None:
-        from ash_renderer_tpu.present import HttpViewer
+        from ash_renderer.present import HttpViewer
 
         http = HttpViewer(args.http, stats=app.renderer.stats)
         print(f"live view: http://localhost:{http.port}/", flush=True)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Inverse rendering demo: recover vertex colors from a target image by
-gradient descent through the TPU shading stage (impossible in the original
+gradient descent through the device shading stage (impossible in the original
 Vulkan pipeline — a JAX-native framework capability).
 
   python examples/inverse_rendering.py
@@ -15,19 +15,19 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     Mesh,
     Scene,
     SceneObject,
     derive_raster_config,
 )
-from ash_renderer_tpu.diffrender import fit_to_image, shade_params_fn
-from ash_renderer_tpu.models import icosphere
-from ash_renderer_tpu.oracle import geometry_oracle, visibility_oracle
-from ash_renderer_tpu.present import write_png
-from ash_renderer_tpu.rtypes import MaterialsPack
-from ash_renderer_tpu import mathx
+from ash_renderer.diffrender import fit_to_image, shade_params_fn
+from ash_renderer.models import icosphere
+from ash_renderer.oracle import geometry_oracle, visibility_oracle
+from ash_renderer.present import write_png
+from ash_renderer.rtypes import MaterialsPack
+from ash_renderer import mathx
 
 
 def main():

@@ -10,7 +10,7 @@ import os
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ash_renderer_tpu.app import main
+from ash_renderer.app import main
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ["config3_blinn_phong", "--out", "/tmp/frames"])

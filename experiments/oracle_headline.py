@@ -1,12 +1,13 @@
 """Render the headline frame (config4_million_tri) through the numpy oracle
 and pin its hash: the scale-exactness gate for bench.py (VERDICT r2 item 2).
 
-The device path never had an exactness check at headline scale (the hardware
-parity gate is 160 tris at 256x192); this renders the exact frame bench.py
-measures — same meshlet-packed buffers (triangle ids/draw order are part of
-the tie-break semantics), same fused-pipeline RasterConfig (tile_h=8), same
-materials/atlas/light/camera bits — through oracle.raster_cpu ONCE offline,
-and stores the sha256 + a preview PNG under docs/golden/.
+The small parity gate is 160 tris at 256x192; this renders the exact frame
+bench.py and chip_smoke.py measure — same meshlet-packed buffers (triangle
+ids/draw order are part of the tie-break semantics), same subpixel precision
+(the tile shape matters only through derive_raster_config's subpixel_bits,
+4 at these sizes), same materials/atlas/light/camera bits — through
+oracle.raster_cpu ONCE offline, and stores the sha256 + a preview PNG under
+docs/golden/.
 
 Usage: python experiments/oracle_headline.py [--subdiv N] [--out PATH]
                                              [--config NAME]
@@ -14,8 +15,8 @@ Usage: python experiments/oracle_headline.py [--subdiv N] [--out PATH]
 (its own golden: docs/golden/headline_terrain.json, gating
 bench.py --config config4_terrain); --config config5_flythrough pins frame 0
 of the 4xSSAA textured fly-through (docs/golden/headline_config5.json) —
-the purest shade-bound config previously had no at-scale gate (VERDICT r4).
-Runtime at subdiv=8 (1.31M tris): hours of single-core numpy — run detached.
+the purest shade-bound config (seconds of numpy; subdiv=8, 1.31M tris:
+hours of single-core numpy — run detached).
 """
 
 import argparse
@@ -43,14 +44,14 @@ def main():
                              "config5_flythrough"])
     args = ap.parse_args()
 
-    from ash_renderer_tpu.benchmarks import (
+    from ash_renderer.benchmarks import (
         config4_million_tri,
         config4_terrain,
         config5_flythrough,
     )
-    from ash_renderer_tpu.config import derive_raster_config
-    from ash_renderer_tpu.oracle.raster_cpu import compose_mvp, render_oracle
-    from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
+    from ash_renderer.config import derive_raster_config
+    from ash_renderer.oracle.raster_cpu import compose_mvp, render_oracle
+    from ash_renderer.rtypes import LightPack, MaterialsPack
 
     t0 = time.time()
     if args.config == "config4_terrain":
@@ -60,12 +61,10 @@ def main():
     else:
         scene, settings, cams = config4_million_tri(subdiv=args.subdiv)
     cam = cams[0]
-    # EXACTLY the Renderer's fused-pipeline world: meshlet packing (triangle
-    # order feeds the (d16, -tri_id) tie-break) and the tile_h=8 RasterConfig
-    packed = scene.pack(meshlets=True)
-    cfg = derive_raster_config(
-        settings.render_width, settings.render_height, tile_h=8
-    )
+    # EXACTLY the Renderer's world: meshlet packing (triangle order feeds
+    # the (d16, -tri_id) tie-break) and its RasterConfig
+    packed = scene.pack()
+    cfg = derive_raster_config(settings.render_width, settings.render_height)
     model_mats = scene.model_matrices()
     view = cam.view_matrix()
     proj = cam.projection_matrix(settings.render_width / settings.render_height)
@@ -121,14 +120,14 @@ def main():
         "covered_px": covered,
         "sha256": digest,
         "pack": "meshlets",
-        "tile_h": 8,
+        "subpixel_bits": cfg.subpixel_bits,
     }
     with open(out, "w") as f:
         json.dump(meta, f, indent=1)
     # full frame (for byte-diff debugging) + preview PNG
     np.savez_compressed(out.replace(".json", "_rgba8.npz"), rgba8=rgba8)
     try:
-        from ash_renderer_tpu.native import write_png
+        from ash_renderer.native import write_png
 
         write_png(
             os.path.join(outdir, os.path.basename(out).replace(".json", ".png")),

@@ -8,7 +8,7 @@ everything render_oracle needs.  All content is procedurally deterministic
 
 import numpy as np
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     DirectionalLight,
     Material,
@@ -17,9 +17,9 @@ from ash_renderer_tpu import (
     SceneObject,
     mathx,
 )
-from ash_renderer_tpu.models import cube, icosphere, uv_sphere
-from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
-from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+from ash_renderer.models import cube, icosphere, uv_sphere
+from ash_renderer.rtypes import LightPack, MaterialsPack
+from ash_renderer.textures import TextureAtlas, checkerboard
 
 F32 = np.float32
 
@@ -141,8 +141,8 @@ GOLDEN_SCENES = {
 
 def render_scene_oracle(name: str):
     """Render one golden scene with the numpy oracle; returns (rgba8, aux)."""
-    from ash_renderer_tpu.oracle import render_oracle
-    from ash_renderer_tpu.oracle.raster_cpu import compose_mvp
+    from ash_renderer.oracle import render_oracle
+    from ash_renderer.oracle.raster_cpu import compose_mvp
 
     scene, st = GOLDEN_SCENES[name]()
     cam = Camera()

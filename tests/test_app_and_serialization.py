@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     DirectionalLight,
     Material,
@@ -14,10 +14,10 @@ from ash_renderer_tpu import (
     SceneObject,
     reference_two_triangle_scene,
 )
-from ash_renderer_tpu.app import App, InputEvent, render_to_images
-from ash_renderer_tpu.models import cube
-from ash_renderer_tpu.serialization import load_scene, save_scene
-from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+from ash_renderer.app import App, InputEvent, render_to_images
+from ash_renderer.models import cube
+from ash_renderer.serialization import load_scene, save_scene
+from ash_renderer.textures import TextureAtlas, checkerboard
 
 
 def test_app_step_loop():
@@ -33,14 +33,15 @@ def test_app_step_loop():
     assert app.camera.theta == pytest.approx(0.05)
 
 
-def test_app_warmup_default_is_tpu_only(monkeypatch):
-    """App precompiles stages by default, but ONLY on a real TPU device:
-    on the CPU/interpret fallback the warmup costs more than the first
-    frame it would hide (this suite runs on CPU — warmup must not run)."""
-    from ash_renderer_tpu.renderer import Renderer
+def test_app_warmup_default_is_gpu_only(monkeypatch):
+    """App precompiles stages by default, but ONLY where the kernels are
+    compiled (a GPU): in CPU interpret mode the warmup costs more than the
+    first frame it would hide (this suite runs on CPU — warmup must not
+    run)."""
+    from ash_renderer.renderer import Renderer
 
     def boom(self, parallel=True):  # pragma: no cover - must not be hit
-        raise AssertionError("warmup() ran on a non-TPU device")
+        raise AssertionError("warmup() ran in interpret mode")
 
     monkeypatch.setattr(Renderer, "warmup", boom)
     App(
@@ -93,8 +94,8 @@ def test_scene_serialization_roundtrip(tmp_path):
     assert back_cams[1].theta == pytest.approx(1.0)
 
     # serialized scene renders identically
-    from ash_renderer_tpu.oracle import render_oracle
-    from ash_renderer_tpu.oracle.raster_cpu import compose_mvp
+    from ash_renderer.oracle import render_oracle
+    from ash_renderer.oracle.raster_cpu import compose_mvp
 
     st = RendererSettings(width=48, height=32, clip_budget=32)
     for sc in (scene, back):
@@ -111,7 +112,7 @@ def test_scene_serialization_roundtrip(tmp_path):
 
 
 def test_cli_smoke(tmp_path):
-    from ash_renderer_tpu.app import main
+    from ash_renderer.app import main
 
     out = os.path.join(str(tmp_path), "frames")
     main(["reference", "--size", "64x48", "--out", out])
@@ -122,7 +123,7 @@ def test_app_self_recovering_resize():
     """A resize event under a running loop recovers inside draw_frame —
     the OUT_OF_DATE/SUBOPTIMAL self-recovery (renderer.rs:416-428): no
     explicit renderer.resize() call anywhere."""
-    from ash_renderer_tpu.present import FrameCollector
+    from ash_renderer.present import FrameCollector
 
     app = App(
         reference_two_triangle_scene(),
@@ -150,8 +151,8 @@ def test_http_viewer_pixel_exact():
 
     import numpy as np
 
-    from ash_renderer_tpu.present import HttpViewer
-    from ash_renderer_tpu.utils.profiling import FrameStats
+    from ash_renderer.present import HttpViewer
+    from ash_renderer.utils.profiling import FrameStats
 
     stats = FrameStats()
     v = HttpViewer(port=0, stats=stats)  # ephemeral port
@@ -183,7 +184,7 @@ def test_frame_stats_summary_nonblocking():
     None rather than converted (conversion would block the host on the
     device pipeline, serializing an App loop that shows stats per frame).
     sync=True opts into blocking."""
-    from ash_renderer_tpu.utils.profiling import FrameStats
+    from ash_renderer.utils.profiling import FrameStats
 
     class InFlight:
         """Device-scalar stand-in whose conversion is a test failure."""

@@ -6,8 +6,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from ash_renderer_tpu import RendererSettings
-from ash_renderer_tpu import benchmarks as bm
+from ash_renderer import RendererSettings
+from ash_renderer import benchmarks as bm
 from tests.test_pipeline_parity import assert_frame_parity, run_device
 
 

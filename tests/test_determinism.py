@@ -2,10 +2,12 @@
 produce IDENTICAL bits under numpy and jitted XLA.
 
 These tests guard against XLA rewrites that change f32 rounding (FMA
-contraction — disabled on CPU via --xla_cpu_max_isa=SSE4_2 in conftest, and
-measured absent on TPU — and algebraic factoring like a*c + b*c -> (a+b)*c,
-which the spec formulas are structured to avoid).  If any of these fail
-after a JAX upgrade, the spec in specmath.py must be re-hardened.
+contraction — disabled on CPU via --xla_cpu_max_isa=SSE4_2 in conftest and
+on the GPU via ash_renderer.backend.NO_FMA_FLAG — and algebraic factoring
+like a*c + b*c -> (a+b)*c, which the spec formulas are structured to avoid).
+The chains live in ash_renderer.exactness; the ``gpu`` cases run them on
+the card.  If any fail after a JAX upgrade, the spec in specmath.py must be
+re-hardened.
 """
 
 import numpy as np
@@ -13,42 +15,29 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ash_renderer_tpu import specmath as sm
+from ash_renderer import exactness
+from ash_renderer import specmath as sm
 
-RNG = np.random.default_rng(1234)
 N = 100000
 
 
 def bits_equal(a, b):
-    a, b = np.asarray(a), np.asarray(b)
-    assert a.dtype == b.dtype, (a.dtype, b.dtype)
-    if a.dtype == np.float32:
-        return int((a.view(np.int32) != b.view(np.int32)).sum())
-    return int((a != b).sum())
+    return exactness.bit_mismatches(a, b)
 
 
-def check(fn, *args):
-    nv = fn(np, *args)
-    jv = jax.jit(lambda *a: fn(jnp, *a))(*args)
-    mism = (
-        sum(bits_equal(x, y) for x, y in zip(nv, jv))
-        if isinstance(nv, tuple)
-        else bits_equal(nv, jv)
-    )
-    assert mism == 0, f"{mism} bit mismatches"
+def check(*names):
+    for name in names:
+        mism = exactness.chain_mismatches(name, n=N)
+        assert mism == 0, f"{name}: {mism} bit mismatches"
 
 
 def test_recip_rsqrt_spec():
-    x = np.concatenate(
-        [RNG.uniform(1e-6, 1e6, N // 2), RNG.uniform(-1e6, -1e-6, N // 2)]
-    ).astype(np.float32)
-    check(lambda xp, v: sm.recip_spec(v, xp), x)
-    pos = RNG.uniform(1e-12, 1e12, N).astype(np.float32)
-    check(lambda xp, v: sm.rsqrt_spec(v, xp), pos)
+    check("recip", "rsqrt")
 
 
 def test_recip_rsqrt_accuracy():
-    x = RNG.uniform(1e-6, 1e6, N).astype(np.float32)
+    rng = np.random.default_rng(1234)
+    x = rng.uniform(1e-6, 1e6, N).astype(np.float32)
     r = sm.recip_spec(x, np).astype(np.float64)
     rel = np.abs((r - 1.0 / x.astype(np.float64)) * x.astype(np.float64))
     assert rel.max() < 3e-7  # ~2 ulp
@@ -58,103 +47,82 @@ def test_recip_rsqrt_accuracy():
 
 
 def test_snap_and_depth_quantize():
-    ndc = RNG.uniform(-1.5, 1.5, N).astype(np.float32)
-    check(lambda xp, v: sm.snap_coord(v, 1920, 16, -512, (1920 + 32) * 16, xp), ndc)
-    z = RNG.uniform(-0.1, 1.1, N).astype(np.float32)
-    check(lambda xp, v: sm.quantize_depth(v, xp), z)
+    check("snap", "quantize_depth")
 
 
 def test_depth_interp_chain():
-    area = RNG.integers(1, 2**30, N).astype(np.int32)
-    # edge values in [0, area] as for interior pixels
-    f = RNG.uniform(0, 1, (2, N))
-    e0 = (f[0] * area).astype(np.int32)
-    e1 = (f[1] * (area - e0)).astype(np.int32)
-    e2 = area - e0 - e1
-    zq = RNG.integers(0, 65536, (3, N)).astype(np.int32)
-
-    def chain(xp, e0, e1, e2, area, z0, z1, z2):
-        inv = sm.recip_spec(area.astype(np.float32), xp)
-        return sm.interp_depth16(e0, e1, e2, inv, z0, z1, z2, xp)
-
-    check(chain, e0, e1, e2, area, zq[0], zq[1], zq[2])
+    check("depth_interp")
 
 
 def test_perspective_weight_chain():
-    area = RNG.integers(1, 2**30, N).astype(np.int32)
-    e = RNG.integers(0, 2**24, (3, N)).astype(np.int32)
-    iw = RNG.uniform(0.01, 100, (3, N)).astype(np.float32)
-    attr = RNG.uniform(-5, 5, (3, N)).astype(np.float32)
-
-    def chain(xp, e0, e1, e2, area, iw0, iw1, iw2, a0, a1, a2):
-        inv = sm.recip_spec(area.astype(np.float32), xp)
-        l0, l1, l2 = sm.bary_weights(e0, e1, e2, inv, xp)
-        m0, m1, m2 = sm.persp_weights(l0, l1, l2, iw0, iw1, iw2, xp)
-        return sm.dot3(m0, a0, m1, a1, m2, a2)
-
-    check(chain, e[0], e[1], e[2], area, iw[0], iw[1], iw[2], *attr)
+    check("perspective_weights")
 
 
 def test_mat4_apply_chain():
-    m = RNG.uniform(-2, 2, (N, 4, 4)).astype(np.float32)
-    p = RNG.uniform(-10, 10, (3, N)).astype(np.float32)
-
-    def chain(xp, m, x, y, z):
-        return sm.apply_mat4_point(m, x, y, z)
-
-    check(chain, m, p[0], p[1], p[2])
+    check("mat4_apply")
 
 
 def test_lerp_and_powi():
-    a = RNG.uniform(-10, 10, N).astype(np.float32)
-    b = RNG.uniform(-10, 10, N).astype(np.float32)
-    t = RNG.uniform(0, 1, N).astype(np.float32)
-    check(lambda xp, a, b, t: sm.lerp(a, b, t), a, b, t)
-    x = RNG.uniform(0, 1, N).astype(np.float32)
-    e = RNG.integers(0, 256, N).astype(np.int32)
-    check(lambda xp, x, e: sm.powi(x, e, 8, xp), x, e)
+    check("lerp", "powi")
 
 
 def test_float_exponent():
-    x = RNG.uniform(1e-20, 1e20, N).astype(np.float32)
-    check(lambda xp, v: sm.float_exponent(v, xp), x)
+    check("float_exponent")
     # sanity: equals floor(log2)
+    x = np.random.default_rng(1234).uniform(1e-20, 1e20, N).astype(np.float32)
     ref = np.floor(np.log2(x.astype(np.float64))).astype(np.int64)
     got = sm.float_exponent(x, np).astype(np.int64)
     assert (ref == got).all()
 
 
 def test_normalize_chain():
-    v = RNG.uniform(-100, 100, (N, 3)).astype(np.float32)
-
-    def chain(xp, v):
-        n2 = sm.dot3(
-            v[..., 0], v[..., 0], v[..., 1], v[..., 1], v[..., 2], v[..., 2]
-        )
-        inv = sm.rsqrt_spec(xp.maximum(n2, np.float32(1e-30)), xp)
-        return v * inv[..., None]
-
-    check(chain, v)
+    check("normalize")
 
 
 def test_pack_unorm8_and_edges():
-    c = RNG.uniform(-0.2, 1.2, N).astype(np.float32)
-    check(lambda xp, c: sm.pack_unorm8(c, xp), c)
-    xs = RNG.integers(-(2**14), 2**14, (4, N)).astype(np.int32)
-    ys = RNG.integers(-(2**14), 2**14, (4, N)).astype(np.int32)
+    check("pack_unorm8", "edges")
 
-    def chain(xp, xa, ya, xb, yb, px, py):
-        a, b, tl = sm.edge_coeffs(xa, ya, xb, yb)
-        e = sm.edge_at(a, b, xa, ya, px, py)
-        return e + sm.fill_bias(tl, xp)
 
-    check(chain, xs[0], ys[0], xs[1], ys[1], xs[2], ys[2])
+def test_round_depth16_is_round_half_even():
+    """The rounding in interp_depth16 (floor + exact tie test, no round
+    primitive) equals clip(round_half_even(x)) at every tie, its
+    neighbours, and far out of range — under numpy and jitted XLA."""
+    rng = np.random.default_rng(3)
+    k = np.arange(-4, 65541).astype(np.float32)
+    x = np.concatenate([
+        rng.uniform(-3, 66000, 200000), k, k + np.float32(0.5),
+        rng.uniform(-1e9, 1e9, 10000),
+    ]).astype(np.float32)
+    x = np.concatenate([
+        x, np.nextafter(x, np.float32(np.inf)),
+        np.nextafter(x, np.float32(-np.inf)),
+    ])
+    ref = np.clip(np.round(x), 0, sm.DEPTH_MAX).astype(np.int32)
+    np.testing.assert_array_equal(sm.round_depth16(x, np), ref)
+    got = jax.jit(lambda v: sm.round_depth16(v, jnp))(x)
+    np.testing.assert_array_equal(np.asarray(got), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(exactness.CHAINS))
+def test_chain_on_gpu(name, gpu_device):
+    assert exactness.chain_mismatches(name, device=gpu_device, n=N) == 0
+
+
+@pytest.mark.gpu
+def test_parity_gate_on_gpu(gpu_device):
+    assert exactness.parity_gate(gpu_device)
+
+
+def test_parity_gate_on_cpu():
+    """The 256x192 gate that chip_smoke.py runs on the card, here on CPU."""
+    assert exactness.parity_gate(jax.devices("cpu")[0])
 
 
 def test_full_shade_parity_small_scene():
     """End-to-end: the shared shade() under numpy vs jit must agree bitwise
     on a real visibility buffer (lit, textured, perspective camera)."""
-    from ash_renderer_tpu import (
+    from ash_renderer import (
         Camera,
         DirectionalLight,
         Material,
@@ -164,11 +132,11 @@ def test_full_shade_parity_small_scene():
         SceneObject,
         derive_raster_config,
     )
-    from ash_renderer_tpu.oracle import geometry_oracle, visibility_oracle
-    from ash_renderer_tpu.oracle.raster_cpu import compose_mvp
-    from ash_renderer_tpu.ops import shade as shmod
-    from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
-    from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+    from ash_renderer.oracle import geometry_oracle, visibility_oracle
+    from ash_renderer.oracle.raster_cpu import compose_mvp
+    from ash_renderer.ops import shade as shmod
+    from ash_renderer.rtypes import LightPack, MaterialsPack
+    from ash_renderer.textures import TextureAtlas, checkerboard
 
     rng = np.random.default_rng(7)
     nv, nt = 60, 40

@@ -5,8 +5,8 @@ import types
 import jax
 import pytest
 
-from ash_renderer_tpu import RendererSettings
-from ash_renderer_tpu.renderer import select_device
+from ash_renderer import RendererSettings
+from ash_renderer.renderer import select_device
 
 
 def test_explicit_preference_honored():
@@ -18,15 +18,17 @@ def test_explicit_preference_honored():
 def test_score_order(monkeypatch):
     fake = [
         types.SimpleNamespace(platform="cpu", id=0),
-        types.SimpleNamespace(platform="tpu", id=1),
+        types.SimpleNamespace(platform="gpu", id=1),
         types.SimpleNamespace(platform="gpu", id=2),
     ]
     monkeypatch.setattr(jax, "devices", lambda: fake)
-    assert select_device(RendererSettings()).platform == "tpu"
+    assert select_device(RendererSettings()) is fake[1]  # first GPU wins
     assert (
         select_device(RendererSettings(preferred_device_index=0)).platform
         == "cpu"
     )
+    monkeypatch.setattr(jax, "devices", lambda: fake[:1])
+    assert select_device(RendererSettings()) is fake[0]  # CPU-only host
 
 
 def test_update_settings_reselects_device():
@@ -34,14 +36,14 @@ def test_update_settings_reselects_device():
 
     import jax
 
-    from ash_renderer_tpu import reference_two_triangle_scene
-    from ash_renderer_tpu.renderer import Renderer
+    from ash_renderer import reference_two_triangle_scene
+    from ash_renderer.renderer import Renderer
 
     devices = jax.devices()
     r = Renderer(
         reference_two_triangle_scene(),
         dataclasses.replace(
-            __import__("ash_renderer_tpu").RendererSettings(
+            __import__("ash_renderer").RendererSettings(
                 width=64, height=48, clip_budget=32
             ),
             preferred_device_index=0,
@@ -54,7 +56,7 @@ def test_update_settings_reselects_device():
     r.update_settings(new)
     assert r.device is devices[len(devices) - 1]
     # renders on the new device
-    from ash_renderer_tpu import Camera
+    from ash_renderer import Camera
     import numpy as np
 
     rgba8, aux = r.render_frame(Camera())

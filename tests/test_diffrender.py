@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     Mesh,
     RendererSettings,
@@ -12,10 +12,10 @@ from ash_renderer_tpu import (
     SceneObject,
     derive_raster_config,
 )
-from ash_renderer_tpu.diffrender import fit_to_image, shade_params_fn
-from ash_renderer_tpu.oracle import geometry_oracle, visibility_oracle
-from ash_renderer_tpu.ops import shade as shade_mod
-from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
+from ash_renderer.diffrender import fit_to_image, shade_params_fn
+from ash_renderer.oracle import geometry_oracle, visibility_oracle
+from ash_renderer.ops import shade as shade_mod
+from ash_renderer.rtypes import LightPack, MaterialsPack
 
 
 def setup_scene():

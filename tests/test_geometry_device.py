@@ -7,16 +7,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     Mesh,
     Scene,
     SceneObject,
     derive_raster_config,
 )
-from ash_renderer_tpu.oracle import geometry_oracle
-from ash_renderer_tpu.oracle.raster_cpu import compose_mvp
-from ash_renderer_tpu.ops import geometry as gd
+from ash_renderer.oracle import geometry_oracle
+from ash_renderer.oracle.raster_cpu import compose_mvp
+from ash_renderer.ops import geometry as gd
 
 
 def run_both(scene, w, h, clip_budget=64, camera=None):
@@ -111,7 +111,7 @@ def test_parity_clip_heavy(seed):
 
 
 def test_parity_reference_scene():
-    from ash_renderer_tpu import reference_two_triangle_scene
+    from ash_renderer import reference_two_triangle_scene
 
     sc = reference_two_triangle_scene()
     su_o, attrs_o, su_d, attrs_d, stats = run_both(sc, 800, 600)
@@ -120,7 +120,7 @@ def test_parity_reference_scene():
 
 
 def test_parity_multi_object():
-    from ash_renderer_tpu import mathx
+    from ash_renderer import mathx
 
     rng = np.random.default_rng(9)
     sc = Scene()

@@ -6,12 +6,12 @@ import hashlib
 
 import numpy as np
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     RendererSettings,
     reference_two_triangle_scene,
 )
-from ash_renderer_tpu.oracle import render_oracle
+from ash_renderer.oracle import render_oracle
 
 GOLDEN_SHA = "39b86430fefc451ba3762f44f61f7d44ed29bdd07e85e190745edbd1cee4235e"
 

@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     Material,
     Mesh,
@@ -15,7 +15,7 @@ from ash_renderer_tpu import (
     SceneObject,
     mathx,
 )
-from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+from ash_renderer.textures import TextureAtlas, checkerboard
 from tests.test_pipeline_parity import assert_frame_parity
 
 
@@ -88,7 +88,7 @@ def test_gltf_with_embedded_texture(tmp_path):
     from PIL import Image
     import io
 
-    from ash_renderer_tpu.models import load_gltf
+    from ash_renderer.models import load_gltf
 
     img = Image.fromarray(solid_tex(30, 180, 240, 8))
     buf = io.BytesIO()

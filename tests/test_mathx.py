@@ -5,8 +5,8 @@ import math
 import numpy as np
 import pytest
 
-from ash_renderer_tpu import mathx
-from ash_renderer_tpu.camera import Camera, CameraController, orbit_path
+from ash_renderer import mathx
+from ash_renderer.camera import Camera, CameraController, orbit_path
 
 
 def test_look_at_identity_forward_z():

@@ -9,7 +9,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ash_renderer_tpu.models import (
+from ash_renderer.models import (
     cube,
     grid_sheet,
     icosphere,
@@ -19,9 +19,9 @@ from ash_renderer_tpu.models import (
     tri_soup,
     uv_sphere,
 )
-from ash_renderer_tpu.models.obj import load_obj_python, save_obj
-from ash_renderer_tpu.present import FrameCollector, FrameRing, write_png, write_ppm
-from ash_renderer_tpu.textures import TextureAtlas, build_mip_chain, checkerboard
+from ash_renderer.models.obj import load_obj_python, save_obj
+from ash_renderer.present import FrameCollector, FrameRing, write_png, write_ppm
+from ash_renderer.textures import TextureAtlas, build_mip_chain, checkerboard
 
 
 def test_procedural_meshes_valid():
@@ -67,7 +67,7 @@ f -4 -3 -2
 
 
 def test_native_obj_matches_python():
-    from ash_renderer_tpu import native
+    from ash_renderer import native
 
     if not native.available():
         pytest.skip("native lib not built")
@@ -87,8 +87,8 @@ def test_native_meshlets_match_python():
     """The C++ greedy meshlet builder must be BIT-IDENTICAL to the Python
     loop: meshlet boundaries set the triangle draw order (depth tie-break),
     so any divergence changes frames."""
-    from ash_renderer_tpu import native
-    from ash_renderer_tpu import scene as sc
+    from ash_renderer import native
+    from ash_renderer import scene as sc
 
     if not native.available():
         pytest.skip("native lib not built")

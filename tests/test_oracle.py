@@ -5,7 +5,7 @@ under CCW-front + back-cull)."""
 import numpy as np
 import pytest
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     Mesh,
     RendererSettings,
@@ -14,8 +14,8 @@ from ash_renderer_tpu import (
     derive_raster_config,
     reference_two_triangle_scene,
 )
-from ash_renderer_tpu import mathx, specmath as sm
-from ash_renderer_tpu.oracle import geometry_oracle, visibility_oracle, render_oracle
+from ash_renderer import mathx, specmath as sm
+from ash_renderer.oracle import geometry_oracle, visibility_oracle, render_oracle
 
 
 def _render_simple(scene, settings, camera=None):

@@ -1,15 +1,15 @@
 """End-to-end device pipeline vs CPU oracle: pixel-exact frame parity.
 
 The device path runs the REAL Pallas kernel in interpret mode on the CPU
-backend; on hardware the same kernel compiles via Mosaic (bench.py validates
-parity there too — specmath's op set is measured bit-identical on TPU).
+backend; on a GPU the same kernel compiles through Triton (chip_smoke.py
+checks parity there).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     DirectionalLight,
     Material,
@@ -21,11 +21,11 @@ from ash_renderer_tpu import (
     mathx,
     reference_two_triangle_scene,
 )
-from ash_renderer_tpu.oracle import render_oracle
-from ash_renderer_tpu.oracle.raster_cpu import compose_mvp
-from ash_renderer_tpu.pipeline import FrameStatics, render_frame_jit
-from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
-from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+from ash_renderer.oracle import render_oracle
+from ash_renderer.oracle.raster_cpu import compose_mvp
+from ash_renderer.pipeline import FrameStatics, render_frame_jit
+from ash_renderer.rtypes import LightPack, MaterialsPack
+from ash_renderer.textures import TextureAtlas, checkerboard
 
 
 def materials_pack(scene):
@@ -47,9 +47,9 @@ def light_pack(light):
     )
 
 
-def run_device(scene, settings, camera, atlas=None, meshlets=False):
+def run_device(scene, settings, camera, atlas=None):
     cfg = derive_raster_config(settings.render_width, settings.render_height)
-    packed = scene.pack(meshlets=meshlets)
+    packed = scene.pack()
     view = camera.view_matrix()
     proj = camera.projection_matrix(settings.render_width / settings.render_height)
     model_mats = scene.model_matrices()
@@ -80,15 +80,12 @@ def run_device(scene, settings, camera, atlas=None, meshlets=False):
         mats,
         atlas,
         light,
-        jnp.asarray(packed.local_tri)
-        if packed.local_tri is not None
-        else None,
     )
     return np.asarray(rgba8), {k: np.asarray(v) for k, v in aux.items()}
 
 
-def run_oracle(scene, settings, camera, atlas=None, meshlets=False):
-    packed = scene.pack(meshlets=meshlets)
+def run_oracle(scene, settings, camera, atlas=None):
+    packed = scene.pack()
     view = camera.view_matrix()
     proj = camera.projection_matrix(settings.render_width / settings.render_height)
     return render_oracle(
@@ -104,11 +101,10 @@ def run_oracle(scene, settings, camera, atlas=None, meshlets=False):
     )
 
 
-def assert_frame_parity(scene, settings, camera=None, atlas=None,
-                        meshlets=False):
+def assert_frame_parity(scene, settings, camera=None, atlas=None):
     camera = camera or Camera()
-    d_rgba8, d_aux = run_device(scene, settings, camera, atlas, meshlets)
-    o = run_oracle(scene, settings, camera, atlas, meshlets)
+    d_rgba8, d_aux = run_device(scene, settings, camera, atlas)
+    o = run_oracle(scene, settings, camera, atlas)
     np.testing.assert_array_equal(d_aux["vis_tri"], o["vis_tri"])
     np.testing.assert_array_equal(d_aux["vis_d16"], o["vis_d16"])
     np.testing.assert_array_equal(d_rgba8, o["rgba8"])
@@ -201,21 +197,3 @@ def test_multi_object_depth_overlap_parity():
     settings = RendererSettings(width=144, height=112)
     rgba8, aux = assert_frame_parity(scene, settings)
     assert len(np.unique(aux["vis_tri"][aux["vis_tri"] >= 0])) >= 3
-
-
-def test_meshlet_path_parity():
-    """The meshlet-packed scene + one-hot MXU corner gather is pixel-exact."""
-    rng = np.random.default_rng(77)
-    nv, nt = 120, 200
-    pos = rng.uniform(-2, 2, (nv, 3)).astype(np.float32)
-    pos[:, 2] += 3.0
-    mesh = Mesh(
-        positions=pos,
-        indices=rng.integers(0, nv, (nt, 3)).astype(np.int32),
-        colors=rng.uniform(0, 1, (nv, 4)).astype(np.float32),
-    )
-    scene = Scene()
-    scene.add_object(SceneObject(mesh=scene.add_mesh(mesh)))
-    settings = RendererSettings(width=160, height=96)
-    rgba8, aux = assert_frame_parity(scene, settings, meshlets=True)
-    assert (aux["vis_tri"] >= 0).sum() > 100

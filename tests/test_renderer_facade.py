@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from ash_renderer_tpu import Camera, RendererSettings, reference_two_triangle_scene
-from ash_renderer_tpu.camera import CameraController
-from ash_renderer_tpu.present import FrameCollector
-from ash_renderer_tpu.renderer import Renderer
-from ash_renderer_tpu.utils.debugging import validate_frame
+from ash_renderer import Camera, RendererSettings, reference_two_triangle_scene
+from ash_renderer.camera import CameraController
+from ash_renderer.present import FrameCollector
+from ash_renderer.renderer import Renderer
+from ash_renderer.utils.debugging import validate_frame
 
 
 @pytest.fixture(scope="module")
@@ -82,15 +82,16 @@ def test_mesh_update(renderer):
 
 
 def test_warmup_fused_stages():
-    """Renderer.warmup precompiles all fused stages from abstract shapes
-    and the warmed renderer produces the same frame."""
+    """Renderer.warmup precompiles the pipeline's stages from abstract
+    shapes and the warmed renderer produces the same frame (the name
+    predates the single pipeline)."""
     import numpy as np
 
-    from ash_renderer_tpu import Mesh, RendererSettings, Scene, SceneObject
-    from ash_renderer_tpu.renderer import Renderer
+    from ash_renderer import Mesh, RendererSettings, Scene, SceneObject
+    from ash_renderer.renderer import Renderer
 
     rng = np.random.default_rng(2)
-    nv, nt = 150, 4200  # above the auto fused threshold
+    nv, nt = 150, 4200
     pos = rng.uniform(-2, 2, (nv, 3)).astype(np.float32)
     pos[:, 2] += 3.0
     mesh = Mesh(
@@ -100,9 +101,7 @@ def test_warmup_fused_stages():
     )
     sc = Scene()
     sc.add_object(SceneObject(mesh=sc.add_mesh(mesh)))
-    settings = RendererSettings(
-        width=128, height=96, clip_budget=128, pipeline="fused"
-    )
+    settings = RendererSettings(width=128, height=96, clip_budget=128)
     r = Renderer(sc, settings)
     dt = r.warmup()
     assert dt >= 0.0
@@ -110,15 +109,10 @@ def test_warmup_fused_stages():
     r2 = Renderer(sc, settings)
     rgba8_cold, _ = r2.render_frame(Camera())
     np.testing.assert_array_equal(np.asarray(rgba8), np.asarray(rgba8_cold))
+    rgba8_c = rgba8
 
-    # classic path warmup (single module)
-    r3 = Renderer(sc, RendererSettings(width=128, height=96, clip_budget=128))
-    assert r3.warmup() >= 0.0
-    rgba8_c, _ = r3.render_frame(Camera())
-
-    # staged classic warmup lowers the four _stage_* jits with the exact
-    # runtime signature (ADVICE r2: the old form warmed the monolithic jit
-    # the staged runtime never calls)
+    # staged warmup calls the four _stage_* jits with the exact runtime
+    # signature (not the monolithic jit the staged runtime never calls)
     r4 = Renderer(
         sc,
         RendererSettings(
@@ -128,69 +122,3 @@ def test_warmup_fused_stages():
     assert r4.warmup() >= 0.0
     rgba8_s, _ = r4.render_frame(Camera())
     np.testing.assert_array_equal(np.asarray(rgba8_c), np.asarray(rgba8_s))
-
-
-def test_front_coherence_cache_bitexact_and_hits():
-    """Frame-coherence front reuse (pipeline.FrontCache): a static-moving-
-    static sequence is bit-identical to a cache-disabled renderer, the
-    repeated static pose actually HITS (no _fstage_front recompute), and
-    motion/resize invalidate."""
-    import dataclasses
-
-    import numpy as np
-
-    from ash_renderer_tpu import Mesh, RendererSettings, Scene, SceneObject
-    from ash_renderer_tpu import pipeline as plmod
-    from ash_renderer_tpu.renderer import Renderer
-
-    rng = np.random.default_rng(7)
-    nv, nt = 200, 4400  # above the auto fused threshold
-    pos = rng.uniform(-2, 2, (nv, 3)).astype(np.float32)
-    pos[:, 2] += 3.0
-    mesh = Mesh(
-        positions=pos,
-        indices=rng.integers(0, nv, (nt, 3)).astype(np.int32),
-        colors=rng.uniform(0, 1, (nv, 4)).astype(np.float32),
-    )
-    sc = Scene()
-    sc.add_object(SceneObject(mesh=sc.add_mesh(mesh)))
-    settings = RendererSettings(
-        width=128, height=96, clip_budget=128, pipeline="fused"
-    )
-    r = Renderer(sc, settings)
-    assert r._front_cache is not None
-    r_ref = Renderer(
-        sc, dataclasses.replace(settings, front_coherence=False)
-    )
-    assert r_ref._front_cache is None
-
-    cam_a = Camera()
-    cam_b = Camera(position=np.array([0.15, 0.1, -0.2], np.float32))
-    calls = {"n": 0}
-    real_front = plmod._fstage_front
-
-    def counting_front(*a, **kw):
-        calls["n"] += 1
-        return real_front(*a, **kw)
-
-    plmod._fstage_front = counting_front
-    try:
-        seq = [cam_a, cam_a, cam_b, cam_a, cam_a]
-        frames = [np.asarray(r.render_frame(c)[0]) for c in seq]
-        # hits: frames 1 and 4 reuse (5 renders, 3 front computes)
-        assert calls["n"] == 3
-        ref_frames = [np.asarray(r_ref.render_frame(c)[0]) for c in seq]
-    finally:
-        plmod._fstage_front = real_front
-    for i, (f, g) in enumerate(zip(frames, ref_frames)):
-        np.testing.assert_array_equal(f, g, err_msg=f"frame {i}")
-    # same camera twice -> identical frames (the reuse frames serve the
-    # exact cached bits)
-    np.testing.assert_array_equal(frames[0], frames[1])
-    np.testing.assert_array_equal(frames[3], frames[4])
-
-    # resize drops the cache (resolution-keyed world)
-    r.resize(96, 64)
-    assert r._front_cache.key is None
-    rgba8, _ = r.render_frame(cam_a)
-    assert np.asarray(rgba8).shape == (64, 96, 4)

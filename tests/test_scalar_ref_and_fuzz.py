@@ -4,7 +4,7 @@ randomized fuzz parity between oracle and device pipeline."""
 import numpy as np
 import pytest
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     Mesh,
     RendererSettings,
@@ -12,8 +12,8 @@ from ash_renderer_tpu import (
     SceneObject,
     derive_raster_config,
 )
-from ash_renderer_tpu.oracle import geometry_oracle, visibility_oracle
-from ash_renderer_tpu.oracle.scalar_ref import visibility_scalar
+from ash_renderer.oracle import geometry_oracle, visibility_oracle
+from ash_renderer.oracle.scalar_ref import visibility_scalar
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the 8-virtual-device CPU mesh: the sharded
+"""Multi-device sharding tests on the 8-virtual-device CPU mesh: the sharded
 tile-row renderer must reproduce the single-device frame bit-for-bit."""
 
 import numpy as np
@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ash_renderer_tpu import (
+from ash_renderer import (
     Camera,
     Mesh,
     RendererSettings,
@@ -14,10 +14,10 @@ from ash_renderer_tpu import (
     SceneObject,
     derive_raster_config,
 )
-from ash_renderer_tpu.oracle.raster_cpu import compose_mvp
-from ash_renderer_tpu.parallel import make_render_mesh, render_frame_sharded
-from ash_renderer_tpu.pipeline import FrameStatics, render_frame_jit
-from ash_renderer_tpu.rtypes import MaterialsPack
+from ash_renderer.oracle.raster_cpu import compose_mvp
+from ash_renderer.parallel import make_render_mesh, render_frame_sharded
+from ash_renderer.pipeline import FrameStatics, render_frame_jit
+from ash_renderer.rtypes import MaterialsPack
 
 
 def _scene(seed=3, nv=90, nt=70):
@@ -70,11 +70,10 @@ def test_sharded_matches_single_device(n_dev):
         jnp.asarray(mm), jnp.asarray(mvp),
         jnp.asarray(cam.position.astype(np.float32)),
     )
-    local_tri = None
-    single, aux = render_frame_jit(statics, *arrs, mats, None, None, local_tri)
+    single, aux = render_frame_jit(statics, *arrs, mats, None, None)
     sharded, sstats = jax.jit(
         lambda *a: render_frame_sharded(statics, mesh, *a)
-    )(*arrs, mats, None, None, local_tri)
+    )(*arrs, mats, None, None)
     assert (np.asarray(aux["vis_tri"]) >= 0).sum() > 50
     assert int(np.asarray(sstats["pairs_overflow"])) == 0
     np.testing.assert_array_equal(np.asarray(single), np.asarray(sharded))
@@ -106,7 +105,7 @@ def test_sharded_concentrated_slab_budget():
     height = 8 * 8 * n_dev
     # budget sized so the full scene fits, but budget // n_dev would not
     settings = RendererSettings(
-        width=128, height=height, clip_budget=128, max_pairs=1 << 12
+        width=128, height=height, clip_budget=512, max_pairs=1 << 15
     )
     cam = Camera()
     cfg = derive_raster_config(128, height)
@@ -133,7 +132,7 @@ def test_sharded_concentrated_slab_budget():
         jnp.asarray(mm), jnp.asarray(mvp),
         jnp.asarray(cam.position.astype(np.float32)),
     )
-    single, aux = render_frame_jit(statics, *arrs, mats, None, None, None)
+    single, aux = render_frame_jit(statics, *arrs, mats, None, None)
     pairs = int(np.asarray(aux["pairs_total"]))
     assert int(np.asarray(aux["pairs_overflow"])) == 0
     assert pairs > settings.max_pairs // n_dev, (
@@ -141,7 +140,7 @@ def test_sharded_concentrated_slab_budget():
     )
     sharded, sstats = jax.jit(
         lambda *a: render_frame_sharded(statics, mesh, *a)
-    )(*arrs, mats, None, None, None)
+    )(*arrs, mats, None, None)
     assert int(np.asarray(sstats["pairs_overflow"])) == 0
     np.testing.assert_array_equal(np.asarray(single), np.asarray(sharded))
 
@@ -170,72 +169,9 @@ def test_graft_entry_multichip():
     m.dryrun_multichip(4)
 
 
-@pytest.mark.parametrize("n_dev", [2, 8])
-def test_sharded_fused_matches_single_device(n_dev):
-    """The flagship (fused setup + raster/distribute kernel) pipeline,
-    slab-sharded over tile rows, must equal the single-device fused frame
-    bit-for-bit."""
-    from ash_renderer_tpu.ops import setup_kernel
-    from ash_renderer_tpu.parallel import render_frame_sharded_fused
-    from ash_renderer_tpu.pipeline import render_frame_fused_staged
-
-    devices = jax.devices()[:n_dev]
-    assert len(devices) == n_dev
-    mesh = make_render_mesh(devices)
-
-    scene = _scene(seed=9, nv=140, nt=200)
-    height = 8 * 8 * n_dev
-    settings = RendererSettings(
-        width=128, height=height, clip_budget=128, pipeline="fused"
-    )
-    cam = Camera()
-    cfg = derive_raster_config(128, height, tile_h=8)
-    packed = scene.pack(meshlets=True)
-    view = cam.view_matrix()
-    proj = cam.projection_matrix(128 / height)
-    mm = scene.model_matrices()
-    mvp = compose_mvp(mm, view, proj)
-    statics = FrameStatics(
-        cfg=cfg, settings=settings, has_materials=False, has_atlas=False,
-        has_light=False, interpret=True,
-    )
-    tri_mat = packed.obj_material[
-        np.clip(packed.tri_obj, 0, len(packed.obj_material) - 1)
-    ]
-    ltT, matT = setup_kernel.prep_static(
-        packed.local_tri, tri_mat, packed.tri_v[:, 0] >= 0
-    )
-    arrs = (
-        jnp.asarray(packed.positions), jnp.asarray(packed.vert_obj),
-        jnp.asarray(packed.normals), jnp.asarray(packed.colors),
-        jnp.asarray(packed.uvs), jnp.asarray(packed.tri_v),
-        jnp.asarray(packed.tri_obj), jnp.asarray(packed.obj_material),
-        jnp.asarray(mm), jnp.asarray(mvp),
-        jnp.asarray(cam.position.astype(np.float32)),
-    )
-    single, aux = render_frame_fused_staged(
-        statics, *arrs, None, None, None,
-        jnp.asarray(packed.local_tri), jnp.asarray(tri_mat),
-        ltT=jnp.asarray(ltT), matT=jnp.asarray(matT),
-    )
-    sharded, sstats = jax.jit(
-        lambda *a: render_frame_sharded_fused(statics, mesh, *a)
-    )(
-        *arrs, None, None, None,
-        jnp.asarray(tri_mat), jnp.asarray(ltT), jnp.asarray(matT),
-    )
-    assert (np.asarray(aux["vis_tri"]) >= 0).sum() > 50
-    # both paths share the clip budget, so overflow (if any) is identical
-    # and the dropped set matches — the frames must still be bit-equal
-    assert int(np.asarray(sstats["clip_overflow"])) == int(
-        np.asarray(aux["clip_overflow"])
-    )
-    np.testing.assert_array_equal(np.asarray(single), np.asarray(sharded))
-
-
 # ---------------------------------------------------------------------------
-# Renderer facade multi-chip path: Renderer(scene, settings, mesh=...) /
-# RendererSettings.n_devices must route through the sharded pipelines with
+# Renderer facade multi-device path: Renderer(scene, settings, mesh=...) /
+# RendererSettings.n_devices must route through the sharded pipeline with
 # no direct parallel/ imports by the user, bit-equal to single-device.
 # ---------------------------------------------------------------------------
 
@@ -243,13 +179,12 @@ def test_sharded_fused_matches_single_device(n_dev):
 def test_renderer_mesh_facade_classic():
     import dataclasses
 
-    from ash_renderer_tpu import Renderer
+    from ash_renderer import Renderer
 
     mesh = make_render_mesh(jax.devices()[:2])
     scene = _scene()
     settings = RendererSettings(
         width=128, height=64, clip_budget=128, max_pairs=1 << 14,
-        pipeline="classic",
     )
     cam = Camera()
     r_multi = Renderer(scene, settings, mesh=mesh)
@@ -261,18 +196,23 @@ def test_renderer_mesh_facade_classic():
 
 
 def test_renderer_n_devices_facade_fused():
+    """RendererSettings.n_devices routes the main pipeline through the
+    sharded path (the name predates the single pipeline)."""
     import dataclasses
 
-    from ash_renderer_tpu import Renderer
+    from ash_renderer import Renderer
 
     scene = _scene()
     settings = RendererSettings(
         width=128, height=64, clip_budget=128, max_pairs=1 << 14,
-        pipeline="fused", n_devices=2,
+        n_devices=2,
     )
     cam = Camera()
-    rgba_m, aux_m = Renderer(scene, settings).render_frame(cam)
+    r = Renderer(scene, settings)
+    assert r.mesh is not None and r.mesh.devices.size == 2
+    rgba_m, aux_m = r.render_frame(cam)
     assert int(np.asarray(aux_m["clip_overflow"])) == 0
+    assert int(np.asarray(aux_m["pairs_overflow"])) == 0
     single = dataclasses.replace(settings, n_devices=None)
     rgba_s, _ = Renderer(scene, single).render_frame(cam)
     np.testing.assert_array_equal(np.asarray(rgba_m), np.asarray(rgba_s))
@@ -286,16 +226,14 @@ def test_renderer_indivisible_height_pads():
     renderer.rs:416-428)."""
     import dataclasses
 
-    from ash_renderer_tpu import Renderer
+    from ash_renderer import Renderer
 
     scene = _scene()
-    for pipeline in ("classic", "fused"):
+    for height in (48, 80):  # grid_h 3 and 5: both odd vs 2 devices
         settings = RendererSettings(
-            width=128, height=48, clip_budget=128, max_pairs=1 << 14,
-            pipeline=pipeline, n_devices=2,
-        )  # classic grid_h = 3, fused grid_h = 6 -> both odd vs 2 devices
-        if pipeline == "fused":
-            settings = dataclasses.replace(settings, height=40)  # grid_h 5
+            width=128, height=height, clip_budget=128, max_pairs=1 << 14,
+            n_devices=2,
+        )
         cam = Camera()
         rgba_m, _ = Renderer(scene, settings).render_frame(cam)
         single = dataclasses.replace(settings, n_devices=None)
@@ -306,19 +244,18 @@ def test_renderer_indivisible_height_pads():
 
 @pytest.mark.slow
 def test_renderer_headline_1080p_8dev():
-    """VERDICT r3 #7: the full 1920x1080 headline shape through the
-    Renderer facade on 8 devices.  grid_h = 135 (fused, tile_h=8) is
-    indivisible by 8, so this exercises the pad-tile-rows-and-crop path at
-    the exact decomposition the real headline uses — bitwise equal to the
-    single-device frame."""
+    """The full 1920x1080 headline shape through the Renderer facade on 8
+    devices.  grid_h = 68 is indivisible by 8, so this exercises the
+    pad-tile-rows-and-crop path at the exact decomposition the real
+    headline uses — bitwise equal to the single-device frame."""
     import dataclasses
 
-    from ash_renderer_tpu import Renderer
+    from ash_renderer import Renderer
 
     scene = _scene(seed=11, nv=160, nt=240)
     settings = RendererSettings(
         width=1920, height=1080, clip_budget=256, max_pairs=1 << 15,
-        pipeline="fused", n_devices=8,
+        n_devices=8,
     )
     cam = Camera()
     rgba_m, aux_m = Renderer(scene, settings).render_frame(cam)
@@ -329,86 +266,36 @@ def test_renderer_headline_1080p_8dev():
     np.testing.assert_array_equal(np.asarray(rgba_m), np.asarray(rgba_s))
 
 
-def test_sharded_fused_dense_population_counters():
-    """Density coverage for the sharded fused path (VERDICT r4 weak #3):
-    a near-plane-crossing magnified sphere drives the wide-pair ext table,
-    the sorted-table budget tiers AND a live clip tail inside
-    _slab_pipeline_fused — the counters must prove those paths ran, and
-    the frame must stay bitwise equal to single-device."""
-    from ash_renderer_tpu import DirectionalLight, Material, mathx
-    from ash_renderer_tpu.models import icosphere
-    from ash_renderer_tpu.ops import setup_kernel
-    from ash_renderer_tpu.parallel import render_frame_sharded_fused
-    from ash_renderer_tpu.pipeline import render_frame_fused_staged
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_dense_near_plane(n_dev):
+    """A near-plane-crossing magnified sphere: triangles span many tiles and
+    straddle the guard planes, so the sharded slabs bin long tile lists
+    and a live Sutherland-Hodgman clip tail — still bitwise equal to the
+    single-device frame."""
+    import dataclasses
 
-    n_dev = 4
-    devices = jax.devices()[:n_dev]
-    mesh = make_render_mesh(devices)
+    from ash_renderer import Renderer, mathx
+    from ash_renderer.models import icosphere
 
-    scene = Scene(materials=[Material()])
-    # camera just outside the unit sphere (the bench fly-by's closest-
-    # approach regime): magnified front cap -> wide keys; near-plane
-    # crossing -> live clip fans
+    scene = Scene()
+    # camera just outside the unit sphere: magnified front cap crossing
+    # the near plane
     scene.add_object(
         SceneObject(
             mesh=scene.add_mesh(icosphere(2)),
             model=mathx.translation([0, 0, 1.02]),
         )
     )
-    height = 256  # grid_h 32 over 4 slabs
     settings = RendererSettings(
-        width=128, height=height, clip_budget=512, pipeline="fused",
-        wide_rows=1 << 10, wide_pairs=1 << 13,
+        width=128, height=160, clip_budget=512, max_pairs=1 << 14,
+        n_devices=n_dev,
     )
     cam = Camera()
-    cfg = derive_raster_config(128, height, tile_h=8)
-    packed = scene.pack(meshlets=True)
-    view = cam.view_matrix()
-    proj = cam.projection_matrix(128 / height)
-    mm = scene.model_matrices()
-    mvp = compose_mvp(mm, view, proj)
-    statics = FrameStatics(
-        cfg=cfg, settings=settings, has_materials=True, has_atlas=False,
-        has_light=False, interpret=True,
-    )
-    tri_mat = packed.obj_material[
-        np.clip(packed.tri_obj, 0, len(packed.obj_material) - 1)
-    ]
-    ltT, matT = setup_kernel.prep_static(
-        packed.local_tri, tri_mat, packed.tri_v[:, 0] >= 0
-    )
-    mats = MaterialsPack(
-        base_color=np.ones((1, 4), np.float32),
-        tex_id=np.full(1, -1, np.int32),
-        specular=np.zeros(1, np.float32),
-        shininess=np.full(1, 32, np.int32),
-    )
-    arrs = (
-        jnp.asarray(packed.positions), jnp.asarray(packed.vert_obj),
-        jnp.asarray(packed.normals), jnp.asarray(packed.colors),
-        jnp.asarray(packed.uvs), jnp.asarray(packed.tri_v),
-        jnp.asarray(packed.tri_obj), jnp.asarray(packed.obj_material),
-        jnp.asarray(mm), jnp.asarray(mvp),
-        jnp.asarray(cam.position.astype(np.float32)),
-    )
-    single, aux = render_frame_fused_staged(
-        statics, *arrs, mats, None, None,
-        jnp.asarray(packed.local_tri), jnp.asarray(tri_mat),
-        ltT=jnp.asarray(ltT), matT=jnp.asarray(matT),
-    )
-    sharded, sstats = jax.jit(
-        lambda *a: render_frame_sharded_fused(statics, mesh, *a)
-    )(
-        *arrs, mats, None, None,
-        jnp.asarray(tri_mat), jnp.asarray(ltT), jnp.asarray(matT),
-    )
-    cnt = {k: int(np.asarray(v)) for k, v in sstats.items()}
-    # the paths under test actually ran in at least one slab...
-    assert cnt["n_wide"] > 0, cnt
-    assert cnt["wide_pairs_n"] > 0, cnt
-    assert cnt["n_clipped"] > 0, cnt
-    # ...within budget (overflow would make this a budget test instead)
-    assert cnt["wide_leftover"] == 0, cnt
-    assert cnt["clip_overflow"] == 0, cnt
-    assert (np.asarray(aux["vis_tri"]) >= 0).sum() > 2000
-    np.testing.assert_array_equal(np.asarray(single), np.asarray(sharded))
+    rgba_m, aux_m = Renderer(scene, settings).render_frame(cam)
+    single = dataclasses.replace(settings, n_devices=None)
+    rgba_s, aux_s = Renderer(scene, single).render_frame(cam)
+    assert int(np.asarray(aux_s["n_clipped"])) > 0
+    assert int(np.asarray(aux_m["clip_overflow"])) == 0
+    assert int(np.asarray(aux_m["pairs_overflow"])) == 0
+    assert (np.asarray(aux_s["vis_tri"]) >= 0).sum() > 2000
+    np.testing.assert_array_equal(np.asarray(rgba_m), np.asarray(rgba_s))

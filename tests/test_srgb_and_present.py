@@ -5,8 +5,8 @@ import time
 
 import numpy as np
 
-from ash_renderer_tpu import Mesh, RendererSettings, Scene, SceneObject
-from ash_renderer_tpu.present import FrameLimiter, TerminalViewer, write_gif
+from ash_renderer import Mesh, RendererSettings, Scene, SceneObject
+from ash_renderer.present import FrameLimiter, TerminalViewer, write_gif
 from tests.test_pipeline_parity import assert_frame_parity
 
 

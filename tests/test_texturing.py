@@ -4,8 +4,8 @@ and the supersample resolve — checked against hand-computed values."""
 import numpy as np
 import pytest
 
-from ash_renderer_tpu.ops import shade as sh
-from ash_renderer_tpu.textures import MAX_LEVELS, TextureAtlas
+from ash_renderer.ops import shade as sh
+from ash_renderer.textures import MAX_LEVELS, TextureAtlas
 
 
 def solid_atlas():
@@ -84,7 +84,7 @@ def test_srgb_pack():
 
 def test_mip_level_from_derivatives_monotonic():
     """_mip_level picks coarser levels as the triangle shrinks on screen."""
-    from ash_renderer_tpu import (
+    from ash_renderer import (
         Camera,
         Material,
         Mesh,
@@ -93,9 +93,9 @@ def test_mip_level_from_derivatives_monotonic():
         SceneObject,
         derive_raster_config,
     )
-    from ash_renderer_tpu.oracle import render_oracle
-    from ash_renderer_tpu.rtypes import MaterialsPack
-    from ash_renderer_tpu.textures import checkerboard
+    from ash_renderer.oracle import render_oracle
+    from ash_renderer.rtypes import MaterialsPack
+    from ash_renderer.textures import checkerboard
 
     levels_seen = []
     for z in (2.0, 8.0, 32.0):
